@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Scaling-efficiency harness (BASELINE.md target: >= 80% from 1 chip ->
+"""Scaling-efficiency harness (BASELINE.json target: >= 80% from 1 device ->
 1 host -> 2+ hosts, time-block sharding with halo exchange).
 
 Measures the time-sharded RX throughput at t in {1, 2, 4, ...} shards over
@@ -9,8 +9,9 @@ vs linear scaling of the t=1 number.  Runs unchanged on:
   * the 8-virtual-device CPU mesh (--virtual 8) — validates the harness and
     the sharding program today (virtual devices share the same cores, so
     the printed efficiency is NOT a hardware statement there), and
-  * real multi-chip hardware when available — the same program's collectives
-    then ride ICI and the efficiency is the real BASELINE metric.
+  * real multi-GPU hardware when available — the same program's
+    collectives then run between the cards and the efficiency is the real
+    BASELINE metric.
 
 Output: one JSON line per shard count + a summary line.
 """
@@ -35,10 +36,10 @@ def _parse():
                         "device count)")
     p.add_argument("--virtual", type=int, default=0,
                    help="force N virtual CPU devices (for hosts without "
-                        "multi-chip hardware)")
+                        "multi-device hardware)")
     p.add_argument("--seconds", type=float, default=3.0)
     p.add_argument("--processes", type=int, default=0,
-                   help="multi-process (DCN/Gloo) mode: spawn N processes, "
+                   help="multi-process (Gloo) mode: spawn N processes, "
                         "each with --virtual local CPU devices, build the "
                         "dp-across-hosts mesh and time the sharded chain. "
                         "Validates the multi-host harness pathway end-to-end "
@@ -50,8 +51,8 @@ def _parse():
 def _multiprocess_driver(args):
     """Spawn N copies of this script as jax.distributed workers and relay
     their output.  The workers share one coordinator (127.0.0.1:free-port),
-    exactly the jax.distributed.initialize pathway real multi-host TPU pods
-    use (with Gloo/TCP standing in for DCN on CPU)."""
+    exactly the jax.distributed.initialize pathway real multi-host clusters
+    use (with Gloo/TCP standing in for the inter-host network on CPU)."""
     import socket
     import subprocess
 
@@ -98,8 +99,9 @@ def _multiprocess_driver(args):
 def _worker(args):
     """One jax.distributed process of the multi-process run: dp (frames)
     across processes, t (time-sharding) across each process's local devices
-    — the exact mesh layout real multi-host hardware would use (DCN carries
-    only the dp axis; the halo ppermute stays within a process)."""
+    — the exact mesh layout real multi-host hardware would use (the
+    inter-host network carries only the dp axis; the halo ppermute stays
+    within a process)."""
     import time as _time
 
     import numpy as np
@@ -111,10 +113,10 @@ def _worker(args):
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, __file__.rsplit("/", 1)[0])
 
-    from lte_gnu_radio_code_tpu.parallel import chain as pchain
-    from lte_gnu_radio_code_tpu.parallel import multihost
-    from lte_gnu_radio_code_tpu.parallel import sharded
-    from lte_gnu_radio_code_tpu.utils.params import (GOLDEN64, LTE1024,
+    from lte_gnu_radio_code.parallel import chain as pchain
+    from lte_gnu_radio_code.parallel import multihost
+    from lte_gnu_radio_code.parallel import sharded
+    from lte_gnu_radio_code.utils.params import (GOLDEN64, LTE1024,
                                                      LTE2048, OFDMConfig)
 
     multihost.init_distributed()
@@ -175,7 +177,7 @@ def _worker(args):
             "sec_per_step": round(dt, 4),
             "frames_per_step": b,
             "verify": "ok: all locks found, BER 0 on every process",
-            "note": "CPU multi-controller run — validates the DCN harness "
+            "note": "CPU multi-controller run — validates the multi-host harness "
                     "pathway + correctness; NOT a hardware perf claim",
         }), flush=True)
     print(f"MULTIHOST_BENCH_OK pid={pid} procs={nproc} "
@@ -207,11 +209,11 @@ def main():
 
     sys.path.insert(0, __file__.rsplit("/", 1)[0])
 
-    from lte_gnu_radio_code_tpu.models import rxofdm
-    from lte_gnu_radio_code_tpu.parallel import mesh as meshmod
-    from lte_gnu_radio_code_tpu.parallel import sharded
-    from lte_gnu_radio_code_tpu.reference_cpu import golden as G
-    from lte_gnu_radio_code_tpu.utils.params import (GOLDEN64, LTE1024,
+    from lte_gnu_radio_code.models import rxofdm
+    from lte_gnu_radio_code.parallel import mesh as meshmod
+    from lte_gnu_radio_code.parallel import sharded
+    from lte_gnu_radio_code.reference_cpu import golden as G
+    from lte_gnu_radio_code.utils.params import (GOLDEN64, LTE1024,
                                                      LTE2048, OFDMConfig)
 
     base = {"loopback64": GOLDEN64, "lte1024": LTE1024,

@@ -1,7 +1,7 @@
 // Native host-side streaming runtime: lock-free SPSC ring buffer + chunked
 // stream scheduler for complex64 sample streams.
 //
-// This is the TPU framework's counterpart of the role GNU Radio's C++
+// This is the framework's counterpart of the role GNU Radio's C++
 // runtime plays in the reference (SURVEY.md §2.8 X1/X2: thread-per-block
 // scheduler moving complex64 samples through shared-memory ring buffers,
 // with the <=4095-sample work quantum and leftover carry of
@@ -11,8 +11,8 @@
 // device batches the jitted steps consume, without the GIL in the copy
 // path.
 //
-// Build: g++ -O3 -shared -fPIC -o libtpuofdm_ring.so ringbuf.cc -lpthread
-// (driven by lte_gnu_radio_code_tpu/runtime/native.py)
+// Build: g++ -O3 -shared -fPIC -o libofdm_ring.so ringbuf.cc -lpthread
+// (driven by lte_gnu_radio_code/runtime/native.py)
 
 #include <atomic>
 #include <cstdint>

@@ -11,7 +11,7 @@ from setuptools import Extension, setup
 setup(
     ext_modules=[
         Extension(
-            "lte_gnu_radio_code_tpu._ringbuf",
+            "lte_gnu_radio_code._ringbuf",
             sources=["native/ringbuf.cc"],
             extra_compile_args=["-O3", "-std=c++17"],
             extra_link_args=["-lpthread"],

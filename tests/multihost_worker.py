@@ -1,8 +1,8 @@
-"""Worker for the 2-process DCN test (spawned by tests/test_multihost.py).
+"""Worker for the 2-process test (spawned by tests/test_multihost.py).
 
 Each process runs this same SPMD program — the JAX multi-controller model —
 exercising parallel/multihost.py's init + mesh with the dp-across-hosts
-chain (frames over DCN, time-sharding within a host).  The reference analog
+chain (frames across processes, time-sharding within a host).  The reference analog
 is the two-process TX->pickle->GR hand-off (SDRScript.py:136-139) and the
 two-radio split (LEGACY/gr-ofdm-rx/examples/top_block.py:71-87).
 
@@ -39,10 +39,10 @@ def main():
     os.environ["JAX_NUM_PROCESSES"] = str(nproc)
     os.environ["JAX_PROCESS_ID"] = str(pid)
 
-    from lte_gnu_radio_code_tpu.parallel import chain as pchain
-    from lte_gnu_radio_code_tpu.parallel import multihost
-    from lte_gnu_radio_code_tpu.parallel import sharded
-    from lte_gnu_radio_code_tpu.utils.params import OFDMConfig
+    from lte_gnu_radio_code.parallel import chain as pchain
+    from lte_gnu_radio_code.parallel import multihost
+    from lte_gnu_radio_code.parallel import sharded
+    from lte_gnu_radio_code.utils.params import OFDMConfig
 
     multihost.init_distributed()
     assert jax.process_count() == nproc, jax.process_count()

@@ -5,11 +5,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lte_gnu_radio_code_tpu.parallel import multihost
-from lte_gnu_radio_code_tpu.reference_cpu import golden as G
-from lte_gnu_radio_code_tpu.runtime.stream import StreamingRx
-from lte_gnu_radio_code_tpu.utils import profiling
-from lte_gnu_radio_code_tpu.utils.params import GOLDEN64
+from lte_gnu_radio_code.parallel import multihost
+from lte_gnu_radio_code.reference_cpu import golden as G
+from lte_gnu_radio_code.runtime.stream import StreamingRx
+from lte_gnu_radio_code.utils import profiling
+from lte_gnu_radio_code.utils.params import GOLDEN64
 
 
 def test_stream_checkpoint_resume(tmp_path):

@@ -2,7 +2,7 @@
 CPU reference sweep'; VERDICT r1 weak #4).
 
 Three layers:
-  * mid-SNR QPSK waterfall over Fading: TPU chain vs the CPU oracle chain,
+  * mid-SNR QPSK waterfall over Fading: JAX chain vs the CPU oracle chain,
     mean BER per point within sampling error (different noise realisations,
     so the comparison is statistical; tests/test_stream_rx.py and the
     same-buffer tests elsewhere cover bit-exactness),
@@ -21,9 +21,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lte_gnu_radio_code_tpu.models import chain
-from lte_gnu_radio_code_tpu.reference_cpu import golden as G
-from lte_gnu_radio_code_tpu.utils.params import OFDMConfig
+from lte_gnu_radio_code.models import chain
+from lte_gnu_radio_code.reference_cpu import golden as G
+from lte_gnu_radio_code.utils.params import OFDMConfig
 
 
 def _qfunc(x):
@@ -48,9 +48,9 @@ def _gray_qam_ber(m, snr):
         _qfunc(math.sqrt(3 * snr / (m - 1)))
 
 
-def _tpu_bers(cfg, frames, seed0=0):
+def _jax_bers(cfg, frames, seed0=0):
     """Mean BER over `frames` independent frames, batched in ONE vmapped
-    call (TPU frames are nearly free — VERDICT r2 weak #8)."""
+    call (device frames are cheap)."""
     f = jax.jit(jax.vmap(chain.make_chain(cfg)))
     bits = np.stack([
         np.random.default_rng(seed0 + i).integers(
@@ -66,7 +66,7 @@ def _oracle_bers(cfg, frames, seed0=0):
 
 def _agree(tb, ob, rel_detect=None):
     """2-sigma agreement; with rel_detect, also require the band to be tight
-    enough that a `rel_detect` relative bias in the TPU curve would FAIL —
+    enough that a `rel_detect` relative bias in the JAX curve would FAIL —
     the mutation-sensitivity guarantee (verified by actual mutation in
     test_tolerance_catches_injected_bias)."""
     t, o = np.mean(tb), np.mean(ob)
@@ -81,7 +81,7 @@ def _agree(tb, ob, rel_detect=None):
 @pytest.mark.parametrize("snr_db,frames", [(4.0, 32), (8.0, 32), (12.0, 32)])
 def test_qpsk_fading_curve_matches_oracle(snr_db, frames):
     cfg = OFDMConfig(snr_db=snr_db).validate()
-    tb, ob = _tpu_bers(cfg, frames), _oracle_bers(cfg, frames)
+    tb, ob = _jax_bers(cfg, frames), _oracle_bers(cfg, frames)
     # at the 4 dB waterfall knee the band must be tight enough to catch a
     # 10% systematic bias (VERDICT r2 weak #8); higher points sit too low on
     # the curve for a relative-bias guarantee at this sample size
@@ -94,7 +94,7 @@ def test_tolerance_catches_injected_bias():
     point must trip the agreement assertion (proves the tolerance is a real
     detector, not decoration)."""
     cfg = OFDMConfig(snr_db=4.0).validate()
-    tb, ob = _tpu_bers(cfg, 32), _oracle_bers(cfg, 32)
+    tb, ob = _jax_bers(cfg, 32), _oracle_bers(cfg, 32)
     _agree(tb, ob)                                   # genuine curves agree
     with pytest.raises(AssertionError):
         _agree(tb * 1.10, ob)                        # mutant must be caught
@@ -103,11 +103,11 @@ def test_tolerance_catches_injected_bias():
 def test_lte1024_waterfall_point_matches_oracle():
     """BER agreement at LTE numerology (VERDICT r2 weak #8: no waterfall
     point existed at NFFT 1024 — only zero-BER/moderate-SNR smoke tests)."""
-    from lte_gnu_radio_code_tpu.utils.params import LTE1024
+    from lte_gnu_radio_code.utils.params import LTE1024
     import dataclasses
     cfg = dataclasses.replace(LTE1024, snr_db=5.0).validate()
     frames = 12                       # 12 x 92160 bits ~ 1.1M bits per side
-    tb, ob = _tpu_bers(cfg, frames), _oracle_bers(cfg, frames)
+    tb, ob = _jax_bers(cfg, frames), _oracle_bers(cfg, frames)
     _agree(tb, ob)
     assert np.mean(ob) > 1e-3, "point must sit in the waterfall"
 
@@ -117,9 +117,9 @@ def test_cfo_case_ber_point_matches_oracle_mid_snr():
     (VERDICT r2 weak #8: the legacy family had no BER point — only clean
     high-SNR structural agreement).  Same buffer in, so the agreement is
     bit-exact per buffer; the mean BER must sit in the waterfall."""
-    from lte_gnu_radio_code_tpu.models import legacy_rx
-    from lte_gnu_radio_code_tpu.reference_cpu import legacy as L
-    from lte_gnu_radio_code_tpu.utils.params import CFO_CASES, config_from_case
+    from lte_gnu_radio_code.models import legacy_rx
+    from lte_gnu_radio_code.reference_cpu import legacy as L
+    from lte_gnu_radio_code.utils.params import CFO_CASES, config_from_case
 
     cfg = config_from_case(CFO_CASES, 0, snr_db=8.0)
     f = None                          # built at the actual buffer length
@@ -143,18 +143,18 @@ def test_cfo_case_ber_point_matches_oracle_mid_snr():
         oh, _, _ = G.bit_recovery(o["est_data_freq"][:n].reshape(-1))
         th, _, _ = G.bit_recovery(np.asarray(r.phasors[:n]).reshape(-1))
         nb = min(len(oh), cfg.num_bits)
-        assert (oh[:nb] != th[:nb]).sum() == 0, "TPU != oracle on same buffer"
+        assert (oh[:nb] != th[:nb]).sum() == 0, "JAX != oracle on same buffer"
         bers.append(float(np.mean(th[:nb] != bits[:nb])))
     assert 1e-4 < np.mean(bers) < 0.1, bers
 
 
 def test_dsss_case_hard_bits_match_oracle_mid_snr():
-    """DSSS despread hard decisions at mid SNR: TPU == oracle bit-for-bit on
+    """DSSS despread hard decisions at mid SNR: JAX == oracle bit-for-bit on
     the same noisy buffer (extends the clean-SNR atol check of
     test_legacy_rx.py to the decision boundary regime)."""
-    from lte_gnu_radio_code_tpu.models import legacy_rx
-    from lte_gnu_radio_code_tpu.reference_cpu import legacy as L
-    from lte_gnu_radio_code_tpu.utils.params import DSSS_CASES, config_from_case
+    from lte_gnu_radio_code.models import legacy_rx
+    from lte_gnu_radio_code.reference_cpu import legacy as L
+    from lte_gnu_radio_code.utils.params import DSSS_CASES, config_from_case
 
     case = 4
     cfg = config_from_case(DSSS_CASES, case, snr_db=8.0)

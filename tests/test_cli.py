@@ -5,10 +5,10 @@ import json
 import numpy as np
 import pytest
 
-from lte_gnu_radio_code_tpu.cli import ber_sweep, ofdm_chain, pls_demo, rx_file
-from lte_gnu_radio_code_tpu.io import pickles as io
-from lte_gnu_radio_code_tpu.reference_cpu import golden as G
-from lte_gnu_radio_code_tpu.utils.params import (CFO_CASES, GOLDEN64,
+from lte_gnu_radio_code.cli import ber_sweep, ofdm_chain, pls_demo, rx_file
+from lte_gnu_radio_code.io import pickles as io
+from lte_gnu_radio_code.reference_cpu import golden as G
+from lte_gnu_radio_code.utils.params import (CFO_CASES, GOLDEN64,
                                                  config_from_case)
 
 
@@ -63,7 +63,7 @@ def test_rx_file_cfo_case(tmp_path):
 def test_config_files_load():
     import pathlib
 
-    from lte_gnu_radio_code_tpu.utils.params import OFDMConfig
+    from lte_gnu_radio_code.utils.params import OFDMConfig
     for f in pathlib.Path("configs").glob("*.json"):
         kw = json.load(open(f))
         kw["synch_dat"] = tuple(kw["synch_dat"])
@@ -78,7 +78,7 @@ def test_ofdm_chain_stream_mode_replayed_vectors(ref_vectors):
     replay due to the channel tail), zero bit errors."""
     import pathlib
 
-    from lte_gnu_radio_code_tpu.cli import ofdm_chain
+    from lte_gnu_radio_code.cli import ofdm_chain
 
     base = pathlib.Path(
         "/root/reference/GNU-Radio-Repositories/TEST/GNU_RADIO_OFFLINE/Data")
@@ -113,15 +113,15 @@ def test_rx_file_stream_equals_batch(tmp_path):
 def test_tx_file_generate_and_replay(tmp_path):
     """D5 analog: generate writes a decodable frame; replay streams the
     legacy numbered pickles through the 4095-quantum chunked source."""
-    from lte_gnu_radio_code_tpu.cli import tx_file
-    from lte_gnu_radio_code_tpu.models import rxofdm
+    from lte_gnu_radio_code.cli import tx_file
+    from lte_gnu_radio_code.models import rxofdm
     import jax.numpy as jnp
 
     gen = tx_file.main([str(tmp_path / "gen.pckl"), "--generate",
                         "--num-symbols", "48", "--json"])
     sig = io.load_pickle_iq(tmp_path / "gen.pckl").ravel()
     assert gen["samples"] == sig.size
-    from lte_gnu_radio_code_tpu.utils.params import OFDMConfig
+    from lte_gnu_radio_code.utils.params import OFDMConfig
     cfg = OFDMConfig(num_ofdm_symb=48).validate()
     faded = G.apply_channel(sig, G.channel_taps("Fading"),
                             max_impulse=cfg.nfft)

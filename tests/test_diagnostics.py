@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lte_gnu_radio_code_tpu.models import rxofdm, split
-from lte_gnu_radio_code_tpu.reference_cpu import golden as G
-from lte_gnu_radio_code_tpu.utils import diagnostics as D
-from lte_gnu_radio_code_tpu.utils.params import GOLDEN64
+from lte_gnu_radio_code.models import rxofdm, split
+from lte_gnu_radio_code.reference_cpu import golden as G
+from lte_gnu_radio_code.utils import diagnostics as D
+from lte_gnu_radio_code.utils.params import GOLDEN64
 
 
 def _buf(cfg, seed=0, snr_db=100.0):
@@ -74,13 +74,13 @@ def test_dump_files(tmp_path):
 
 def test_bit_recovery_pairswap_variant():
     """Pin the Bit_Recovery.py per-stream variant (the :143-147 bit-pair
-    swap): TPU op == literal oracle exactly; hard bits equal the plain
+    swap): JAX op == literal oracle exactly; hard bits equal the plain
     BitRecovery demap for in-range symbols; LLR magnitudes cross-assigned."""
     import numpy as np
     import jax.numpy as jnp
 
-    from lte_gnu_radio_code_tpu.ops import modulation
-    from lte_gnu_radio_code_tpu.reference_cpu import golden as G
+    from lte_gnu_radio_code.ops import modulation
+    from lte_gnu_radio_code.reference_cpu import golden as G
 
     rng = np.random.default_rng(11)
     pts = G.qpsk_map(rng.integers(0, 2, 2 * 600))

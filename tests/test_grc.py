@@ -7,8 +7,8 @@ import pickle
 import numpy as np
 import pytest
 
-from lte_gnu_radio_code_tpu.io.grc import interpret_grc, load_grc, _eval
-from lte_gnu_radio_code_tpu.utils.params import CFO_CASES, config_from_case
+from lte_gnu_radio_code.io.grc import interpret_grc, load_grc, _eval
+from lte_gnu_radio_code.utils.params import CFO_CASES, config_from_case
 
 REF = "/root/reference/GNU-Radio-Repositories"
 D1_GRC = f"{REF}/ofdm_chain.grc"
@@ -95,7 +95,7 @@ def test_eval_grc_expressions():
 
 @needs_ref
 def test_run_imported_d1_loopback():
-    from lte_gnu_radio_code_tpu.cli import grc_import
+    from lte_gnu_radio_code.cli import grc_import
 
     out = grc_import.main([D1_GRC, "--run", "--json"])
     assert out["run"]["found"] is True
@@ -106,8 +106,8 @@ def test_run_imported_d1_loopback():
 @needs_ref
 def test_run_imported_d6_on_synthetic_capture(tmp_path):
     """The D6 RX graph runs on a case-7 capture and recovers the bits."""
-    from lte_gnu_radio_code_tpu.cli import grc_import
-    from lte_gnu_radio_code_tpu.reference_cpu import golden as G
+    from lte_gnu_radio_code.cli import grc_import
+    from lte_gnu_radio_code.reference_cpu import golden as G
 
     cfg = config_from_case(CFO_CASES, 7, snr_db=1e8)
     rng = np.random.default_rng(0)
@@ -126,14 +126,14 @@ def test_run_imported_d6_on_synthetic_capture(tmp_path):
 
 @needs_ref
 def test_out_config_roundtrips_through_json(tmp_path):
-    from lte_gnu_radio_code_tpu.cli import grc_import
+    from lte_gnu_radio_code.cli import grc_import
 
     out_json = tmp_path / "imported.json"
     grc_import.main([D1_GRC, "-o", str(out_json), "--json"])
     import json
 
     cfgd = json.loads(out_json.read_text())
-    from lte_gnu_radio_code_tpu.utils.params import OFDMConfig
+    from lte_gnu_radio_code.utils.params import OFDMConfig
 
     c = OFDMConfig(**{**cfgd, "synch_dat": tuple(cfgd["synch_dat"])})
     assert c.validate().nfft == 64

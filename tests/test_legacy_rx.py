@@ -1,13 +1,13 @@
-"""CFO-search + DSSS RX (R4/R5) — TPU model vs literal CPU oracle."""
+"""CFO-search + DSSS RX (R4/R5) — JAX model vs literal CPU oracle."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lte_gnu_radio_code_tpu.models import legacy_rx
-from lte_gnu_radio_code_tpu.reference_cpu import golden as G
-from lte_gnu_radio_code_tpu.reference_cpu import legacy as L
-from lte_gnu_radio_code_tpu.utils.params import (
+from lte_gnu_radio_code.models import legacy_rx
+from lte_gnu_radio_code.reference_cpu import golden as G
+from lte_gnu_radio_code.reference_cpu import legacy as L
+from lte_gnu_radio_code.utils.params import (
     CFO_CASES, DSSS_CASES, config_from_case)
 
 
@@ -83,7 +83,7 @@ def test_dsss_spread_symbols_roundtrip():
     sc = L.dsss_code(dsss)
     syms = (np.array([1 + 1j, -1 + 1j, -1 - 1j, 1 - 1j]) / np.sqrt(2))
     chips = np.kron(syms, np.ones(dsss)) * np.tile(sc, len(syms))
-    from lte_gnu_radio_code_tpu.ops.cfo import dsss_despread
+    from lte_gnu_radio_code.ops.cfo import dsss_despread
     rec = np.asarray(dsss_despread(jnp.asarray(chips, jnp.complex64), dsss))
     np.testing.assert_allclose(rec, syms, atol=1e-6)
 

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lte_gnu_radio_code_tpu.models import chain, rxofdm
-from lte_gnu_radio_code_tpu.parallel import mesh as meshmod, sharded
-from lte_gnu_radio_code_tpu.reference_cpu import golden as G
-from lte_gnu_radio_code_tpu.utils.params import LTE1024, LTE2048, OFDMConfig
+from lte_gnu_radio_code.models import chain, rxofdm
+from lte_gnu_radio_code.parallel import mesh as meshmod, sharded
+from lte_gnu_radio_code.reference_cpu import golden as G
+from lte_gnu_radio_code.utils.params import LTE1024, LTE2048, OFDMConfig
 
 
 @pytest.mark.parametrize("cfg", [LTE1024, LTE2048], ids=["1024", "2048"])
@@ -52,8 +52,8 @@ def test_lte1024_streaming_reacq_equals_batch():
     """Continuous multi-detection streaming at LTE scale (NFFT 1024,
     stride = cp-1): chunked == whole-buffer batch.  Exercises the strided
     conv-bank search inside the stream step."""
-    from lte_gnu_radio_code_tpu.models import stream_rx
-    from lte_gnu_radio_code_tpu.runtime import stream as stream_rt
+    from lte_gnu_radio_code.models import stream_rx
+    from lte_gnu_radio_code.runtime import stream as stream_rt
 
     cfg = OFDMConfig(**{**LTE1024.__dict__, "num_ofdm_symb": 16}).validate()
     rng = np.random.default_rng(3)

@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lte_gnu_radio_code_tpu.models import mimo
-from lte_gnu_radio_code_tpu.utils.params import OFDMConfig
+from lte_gnu_radio_code.models import mimo
+from lte_gnu_radio_code.utils.params import OFDMConfig
 
 
 def _cfg(**kw):
@@ -48,8 +48,8 @@ def test_mimo_rank1_channel_fails_as_physics_dictates():
 
 
 def test_mimo_channel_estimate_matches_truth():
-    from lte_gnu_radio_code_tpu.ops import channel as chan_ops
-    from lte_gnu_radio_code_tpu.ops import sync
+    from lte_gnu_radio_code.ops import channel as chan_ops
+    from lte_gnu_radio_code.ops import sync
     cfg = _cfg()
     bits = jnp.asarray(np.random.default_rng(3).integers(
         0, 2, (2, cfg.num_bits), dtype=np.int32))

@@ -1,4 +1,4 @@
-"""Two-process DCN execution (VERDICT r1 missing #2): spawn two real
+"""Two-process execution (VERDICT r1 missing #2): spawn two real
 processes, jax.distributed.initialize over a local coordinator, run the
 dp-across-hosts sharded chain and require zero BER on every process."""
 

@@ -6,7 +6,7 @@ import threading
 import numpy as np
 import pytest
 
-from lte_gnu_radio_code_tpu.runtime import native
+from lte_gnu_radio_code.runtime import native
 
 
 @pytest.fixture(scope="module")
@@ -105,9 +105,9 @@ def test_native_staging_feeds_streaming_rx(lib):
     streaming RX; zero BER on the canonical frame."""
     import jax.numpy as jnp
 
-    from lte_gnu_radio_code_tpu.reference_cpu import golden as G
-    from lte_gnu_radio_code_tpu.runtime.stream import StreamingRx
-    from lte_gnu_radio_code_tpu.utils.params import GOLDEN64
+    from lte_gnu_radio_code.reference_cpu import golden as G
+    from lte_gnu_radio_code.runtime.stream import StreamingRx
+    from lte_gnu_radio_code.utils.params import GOLDEN64
 
     cfg = GOLDEN64
     bits = np.random.default_rng(0).integers(0, 2, cfg.num_bits)

@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lte_gnu_radio_code_tpu.models import chain, rxofdm, txofdm
-from lte_gnu_radio_code_tpu.ops import channel as chan_ops
-from lte_gnu_radio_code_tpu.ops import pilots
-from lte_gnu_radio_code_tpu.utils.params import (OFDMConfig, pilot_bin_plan,
+from lte_gnu_radio_code.models import chain, rxofdm, txofdm
+from lte_gnu_radio_code.ops import channel as chan_ops
+from lte_gnu_radio_code.ops import pilots
+from lte_gnu_radio_code.utils.params import (OFDMConfig, pilot_bin_plan,
                                                  used_bins)
 
 
@@ -106,7 +106,7 @@ def test_pilot_estimate_tracks_true_channel(spacing, tol):
     r = rxofdm.rx_frame(cfg, rx, n_trials, num_patterns)
     assert bool(r.found)
 
-    from lte_gnu_radio_code_tpu.ops.modulation import bits_to_symbols
+    from lte_gnu_radio_code.ops.modulation import bits_to_symbols
     want = np.asarray(bits_to_symbols(jnp.asarray(bits, jnp.int32),
                                       cfg.modulation)).reshape(
         cfg.num_data_symb, cfg.num_data_only_bins)

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lte_gnu_radio_code_tpu.models import pls as M
-from lte_gnu_radio_code_tpu.ops import pls as O
-from lte_gnu_radio_code_tpu.reference_cpu import pls as P
-from lte_gnu_radio_code_tpu.utils.params import PLSConfig
+from lte_gnu_radio_code.models import pls as M
+from lte_gnu_radio_code.ops import pls as O
+from lte_gnu_radio_code.reference_cpu import pls as P
+from lte_gnu_radio_code.utils.params import PLSConfig
 
 CFG = PLSConfig()
 KEY = np.array([0, 0, 0, 1, 1, 0, 1, 1])
@@ -127,9 +127,9 @@ def test_key_exchange_through_real_sync_beyond_cp():
     channel and with AWGN."""
     import jax
     import jax.numpy as jnp
-    from lte_gnu_radio_code_tpu.models import pls as mpls
-    from lte_gnu_radio_code_tpu.reference_cpu.golden import CHANNELS_MIMO2
-    from lte_gnu_radio_code_tpu.utils.params import PLSConfig
+    from lte_gnu_radio_code.models import pls as mpls
+    from lte_gnu_radio_code.reference_cpu.golden import CHANNELS_MIMO2
+    from lte_gnu_radio_code.utils.params import PLSConfig
 
     cfg = PLSConfig()
     nbits = cfg.num_data_symb * cfg.num_subbands * cfg.bit_codebook

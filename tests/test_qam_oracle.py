@@ -13,15 +13,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lte_gnu_radio_code_tpu.models import chain, rxofdm
-from lte_gnu_radio_code_tpu.ops import modulation, sync
-from lte_gnu_radio_code_tpu.reference_cpu import golden as G
-from lte_gnu_radio_code_tpu.reference_cpu import qam as Q
-from lte_gnu_radio_code_tpu.utils.params import OFDMConfig
+from lte_gnu_radio_code.models import chain, rxofdm
+from lte_gnu_radio_code.ops import modulation, sync
+from lte_gnu_radio_code.reference_cpu import golden as G
+from lte_gnu_radio_code.reference_cpu import qam as Q
+from lte_gnu_radio_code.utils.params import OFDMConfig
 
 
 # ---------------------------------------------------------------------------
-# op-level: TPU implementations == independent NumPy derivations
+# op-level: JAX implementations == independent NumPy derivations
 # ---------------------------------------------------------------------------
 
 
@@ -31,9 +31,9 @@ def test_qam_mapping_matches_oracle(mod):
     qam.qam_map (per-pattern Gray-decode construction) on random bits."""
     bps = Q.BITS_PER_SYMBOL[mod]
     bits = np.random.default_rng(0).integers(0, 2, 4096 * bps)
-    tpu = np.asarray(modulation.bits_to_symbols(jnp.asarray(bits), mod))
+    got = np.asarray(modulation.bits_to_symbols(jnp.asarray(bits), mod))
     ora = Q.qam_map(bits, mod)
-    np.testing.assert_allclose(tpu, ora, atol=1e-6)
+    np.testing.assert_allclose(got, ora, atol=1e-6)
     # unit average power (the scale both derivations must agree on)
     assert abs(np.mean(np.abs(ora) ** 2) - 1.0) < 2e-2
 
@@ -59,10 +59,10 @@ def test_demap_unbias_gain_matches_oracle():
     rng = np.random.default_rng(2)
     h = rng.standard_normal(256) + 1j * rng.standard_normal(256)
     for snr_lin in (10.0, 1e5):
-        tpu = np.asarray(sync.demap_unbias_gain(jnp.asarray(h, jnp.complex64),
+        got = np.asarray(sync.demap_unbias_gain(jnp.asarray(h, jnp.complex64),
                                                 snr_lin))
         ora = Q.demap_unbias_gain(h, snr_lin)
-        np.testing.assert_allclose(tpu, ora, rtol=1e-5)
+        np.testing.assert_allclose(got, ora, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -72,7 +72,7 @@ def test_demap_unbias_gain_matches_oracle():
 
 @pytest.mark.parametrize("mod,snr_db", [("QAM16", 14.0), ("QAM64", 22.0)])
 def test_qam_rx_same_buffer_bit_exact(mod, snr_db):
-    """TPU QAM RX == NumPy QAM oracle bit-for-bit on the SAME noisy Fading
+    """JAX QAM RX == NumPy QAM oracle bit-for-bit on the SAME noisy Fading
     buffer — the check every QPSK path has had since round 1.  SNR sits in
     the low-error regime (some frames carry errors across seeds) so the
     demap is exercised near the grid, not only at saturation."""
@@ -93,7 +93,7 @@ def test_qam_rx_same_buffer_bit_exact(mod, snr_db):
         th = np.asarray(r.hard_bits)
         nb = min(len(th), len(o["hard_bits"]))
         assert (th[:nb] != o["hard_bits"][:nb]).sum() == 0, \
-            f"TPU != oracle on same buffer (seed {seed})"
+            f"JAX != oracle on same buffer (seed {seed})"
         total_err += int((o["hard_bits"][:cfg.num_bits] !=
                           bits[:len(o['hard_bits'])]).sum())
     assert total_err > 0, "SNR too high to exercise the decision grid"
@@ -102,7 +102,7 @@ def test_qam_rx_same_buffer_bit_exact(mod, snr_db):
 def test_qam_mutation_injected_demap_bias_is_caught():
     """Mutation check: skipping the unbias gain (i.e. demapping the biased
     MMSE amplitudes directly — the exact bug demap_unbias_gain exists to
-    prevent) must (a) break same-buffer agreement with the TPU RX and
+    prevent) must (a) break same-buffer agreement with the JAX RX and
     (b) measurably inflate BER."""
     # QAM16 at 14 dB: the bias inflates BER ~2.3x (at higher SNR the MMSE
     # shrinkage tends to 1 and the inflation shrinks — measured sweep in the
@@ -134,7 +134,7 @@ def test_qam_mutation_injected_demap_bias_is_caught():
 # ---------------------------------------------------------------------------
 
 
-def _tpu_bers(cfg, frames, seed0=0):
+def _jax_bers(cfg, frames, seed0=0):
     f = jax.jit(jax.vmap(chain.make_chain(cfg)))
     bits = np.stack([
         np.random.default_rng(seed0 + i).integers(
@@ -152,7 +152,7 @@ def test_qam_curve_2sigma_vs_oracle(mod, snr_db):
     QAM correctness statement)."""
     frames = 32
     cfg = OFDMConfig(modulation=mod, snr_db=snr_db).validate()
-    tb = _tpu_bers(cfg, frames)
+    tb = _jax_bers(cfg, frames)
     ob = np.array([Q.run_chain(cfg, seed=1000 + i)["ber"]
                    for i in range(frames)])
     t, o = np.mean(tb), np.mean(ob)

@@ -5,8 +5,8 @@ trustworthy spec for everything else in the framework."""
 
 import numpy as np
 
-from lte_gnu_radio_code_tpu.reference_cpu import golden as G
-from lte_gnu_radio_code_tpu.utils.params import GOLDEN64, OFDMConfig
+from lte_gnu_radio_code.reference_cpu import golden as G
+from lte_gnu_radio_code.utils.params import GOLDEN64, OFDMConfig
 
 
 def test_tx_matches_shipped_pre_channel_vector(ref_vectors):

@@ -4,13 +4,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lte_gnu_radio_code_tpu.io import pickles as io
-from lte_gnu_radio_code_tpu.models import rxofdm
-from lte_gnu_radio_code_tpu.reference_cpu import golden as G
-from lte_gnu_radio_code_tpu.runtime.flowgraph import (CollectSink, Flowgraph,
+from lte_gnu_radio_code.io import pickles as io
+from lte_gnu_radio_code.models import rxofdm
+from lte_gnu_radio_code.reference_cpu import golden as G
+from lte_gnu_radio_code.runtime.flowgraph import (CollectSink, Flowgraph,
                                                       NullSink)
-from lte_gnu_radio_code_tpu.runtime.stream import StreamingRx
-from lte_gnu_radio_code_tpu.utils.params import GOLDEN64
+from lte_gnu_radio_code.runtime.stream import StreamingRx
+from lte_gnu_radio_code.utils.params import GOLDEN64
 
 
 @pytest.fixture(scope="module")

@@ -9,12 +9,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lte_gnu_radio_code_tpu.models import rxofdm
-from lte_gnu_radio_code_tpu.parallel import chain as pchain
-from lte_gnu_radio_code_tpu.parallel import mesh as meshmod
-from lte_gnu_radio_code_tpu.parallel import sharded
-from lte_gnu_radio_code_tpu.reference_cpu import golden as G
-from lte_gnu_radio_code_tpu.utils.params import GOLDEN64, OFDMConfig
+from lte_gnu_radio_code.models import rxofdm
+from lte_gnu_radio_code.parallel import chain as pchain
+from lte_gnu_radio_code.parallel import mesh as meshmod
+from lte_gnu_radio_code.parallel import sharded
+from lte_gnu_radio_code.reference_cpu import golden as G
+from lte_gnu_radio_code.utils.params import GOLDEN64, OFDMConfig
 
 
 @pytest.fixture(scope="module")

@@ -7,10 +7,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from lte_gnu_radio_code_tpu.models import legacy_rx
-from lte_gnu_radio_code_tpu.reference_cpu import golden as G
-from lte_gnu_radio_code_tpu.runtime import stream as stream_rt
-from lte_gnu_radio_code_tpu.utils.params import (
+from lte_gnu_radio_code.models import legacy_rx
+from lte_gnu_radio_code.reference_cpu import golden as G
+from lte_gnu_radio_code.runtime import stream as stream_rt
+from lte_gnu_radio_code.utils.params import (
     CFO_CASES, DSSS_CASES, config_from_case)
 
 
@@ -131,8 +131,8 @@ def test_sharded_legacy_streaming_equals_batch(n_shards):
     """Chunked AND time-sharded CFO-search stream == single-device batch,
     detection-for-detection — the sequence-scaling composition extended to
     the legacy receiver family."""
-    from lte_gnu_radio_code_tpu.parallel import mesh as meshmod
-    from lte_gnu_radio_code_tpu.parallel.streaming import (
+    from lte_gnu_radio_code.parallel import mesh as meshmod
+    from lte_gnu_radio_code.parallel.streaming import (
         ShardedLegacyStreamingRx)
 
     cfg = config_from_case(CFO_CASES, 0, snr_db=1e8)

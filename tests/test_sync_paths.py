@@ -1,11 +1,10 @@
-"""Parity across the four sync delay-search implementations.
+"""Parity across the three sync delay-search implementations.
 
 The |corr| surface drives the lock decision (gr-RXOFDM
 synch_and_chan_est.py:164-173), so every implementation must agree on it:
   * exact  — the dense [p, L] x [L, cp+1] einsum (the literal del_mat shape)
   * ifft   — one inverse FFT per trial (sync_correlate_ifft, the default)
   * conv   — the strided conv-bank (ops/fast_sync.py)
-  * pallas — the fused kernel (covered separately in test_pallas.py)
 """
 
 import dataclasses
@@ -15,14 +14,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from lte_gnu_radio_code_tpu.models import rxofdm
-from lte_gnu_radio_code_tpu.ops import fast_sync, sync
-from lte_gnu_radio_code_tpu.utils.params import GOLDEN64, LTE1024, OFDMConfig
+from lte_gnu_radio_code.models import rxofdm
+from lte_gnu_radio_code.ops import fast_sync, sync
+from lte_gnu_radio_code.utils.params import (GOLDEN64, LTE1024, LTE2048,
+                                             OFDMConfig)
 
 
 def _buf(cfg, seed=0, frames=1):
     """A frame of TX through the Fading channel (real lock present)."""
-    from lte_gnu_radio_code_tpu.reference_cpu import golden as G
+    from lte_gnu_radio_code.reference_cpu import golden as G
     rng = np.random.default_rng(seed)
     bits = rng.integers(0, 2, cfg.num_bits)
     tx = G.tx_frame(cfg, bits)
@@ -65,8 +65,8 @@ def test_cfo_scan_matches_materialised_cube():
     (peak, delay, fo) winners as the materialised (trial, fo, delay) cube
     (sync_spectra_cfo + sync_correlate_cfo) — both now on the IFFT delay
     axis.  Covers SynchEstAndFO.py:250-278 semantics."""
-    from lte_gnu_radio_code_tpu.ops import cfo as C
-    from lte_gnu_radio_code_tpu.utils.params import CFO_CASES, config_from_case
+    from lte_gnu_radio_code.ops import cfo as C
+    from lte_gnu_radio_code.utils.params import CFO_CASES, config_from_case
 
     cfg = config_from_case(CFO_CASES, 1)
     x = _buf(cfg, seed=5)
@@ -98,13 +98,63 @@ def test_rx_frame_identical_decisions_across_paths(fast):
                                   np.asarray(got.hard_bits))
 
 
+@pytest.mark.parametrize("base,dense", [(LTE1024, True), (LTE1024, False),
+                                        (LTE2048, False)],
+                         ids=["lte1024-dense", "lte1024-strided",
+                              "lte2048-strided"])
+def test_lte_scale_sync_decisions_identical_across_paths(base, dense):
+    """At LTE numerology — the flagship's strided grid (stride cp-1) and the
+    dense stride-1 utsa grid — the ifft, conv and exact searches lock on the
+    same trial and delay, and give the same hard bits, on a noisy Fading
+    buffer."""
+    from lte_gnu_radio_code.reference_cpu import golden as G
+    cfg = dataclasses.replace(base, num_ofdm_symb=8,
+                              stride=1 if dense else base.stride).validate()
+    rng = np.random.default_rng(5)
+    tx = G.tx_frame(cfg, rng.integers(0, 2, cfg.num_bits))
+    rx = G.apply_channel(tx, G.channel_taps("Fading"), max_impulse=cfg.nfft)
+    x = jnp.asarray(G.awgn(cfg, rx, rng, np.var(tx)), jnp.complex64)
+    n_trials, num_patterns = rxofdm.plan_rx(cfg, x.shape[0])
+    got = {fast: rxofdm.rx_frame(cfg, x, n_trials, num_patterns, fast=fast)
+           for fast in ("ifft", "conv", "exact")}
+    want = got["ifft"]
+    assert bool(want.found)
+    for fast, r in got.items():
+        assert int(r.lock_ptr) == int(want.lock_ptr), fast
+        assert int(r.delay_idx) == int(want.delay_idx), fast
+        np.testing.assert_array_equal(np.asarray(r.hard_bits),
+                                      np.asarray(want.hard_bits))
+
+
+@pytest.mark.parametrize("base", [LTE1024, LTE2048], ids=["1024", "2048"])
+def test_equalize_data_symbols_matches_oracle_phasors(base):
+    """sync.equalize_data_symbols (FFT, power norm, delay derotation, MMSE)
+    at the oracle's lock, delay and channel estimate reproduces the oracle's
+    equalised phasors at LTE numerology."""
+    from lte_gnu_radio_code.reference_cpu import golden as G
+    cfg = dataclasses.replace(base, num_ofdm_symb=8).validate()
+    rng = np.random.default_rng(11)
+    tx = G.tx_frame(cfg, rng.integers(0, 2, cfg.num_bits))
+    rx = G.apply_channel(tx, G.channel_taps("Fading"), max_impulse=cfg.nfft)
+    rx = G.awgn(cfg, rx, rng, np.var(tx))
+    ph_o, tsr, cir_o = G.rx_frame(cfg, rx)
+    _, num_patterns = rxofdm.plan_rx(cfg, len(rx))
+    chan_full = np.fft.fft(cir_o, cfg.nfft).astype(np.complex64)
+    ph = np.asarray(sync.equalize_data_symbols(
+        cfg, jnp.asarray(rx, jnp.complex64), int(tsr[0]), int(tsr[1]),
+        jnp.asarray(chan_full), num_patterns))
+    rows = min(len(ph), len(ph_o))
+    assert rows > 0
+    np.testing.assert_allclose(ph[:rows], ph_o[:rows], atol=1e-4)
+
+
 def test_windows_at_matches_gather_including_clamp():
     """The gather-free window extraction (round-4 de-gather) must equal the
     advanced-indexing gather bit-for-bit, including the index-clamp
     semantics for windows that run past the buffer end."""
     import numpy as np
     import jax.numpy as jnp
-    from lte_gnu_radio_code_tpu.ops import cfo as cfo_ops
+    from lte_gnu_radio_code.ops import cfo as cfo_ops
 
     rng = np.random.default_rng(0)
     x = (rng.standard_normal(500) + 1j * rng.standard_normal(500)
@@ -121,7 +171,7 @@ def test_windows_at_matches_gather_including_clamp():
 def test_bank_select_matches_gather():
     import numpy as np
     import jax.numpy as jnp
-    from lte_gnu_radio_code_tpu.ops import cfo as cfo_ops
+    from lte_gnu_radio_code.ops import cfo as cfo_ops
 
     rng = np.random.default_rng(1)
     bank = (rng.standard_normal((7, 64)) + 1j * rng.standard_normal((7, 64))

@@ -1,12 +1,12 @@
-"""Tracking synchronizer (R6/R11): TPU scan model vs literal CPU oracle."""
+"""Tracking synchronizer (R6/R11): JAX scan model vs literal CPU oracle."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from lte_gnu_radio_code_tpu.models import tracker as M
-from lte_gnu_radio_code_tpu.reference_cpu import golden as G
-from lte_gnu_radio_code_tpu.reference_cpu import tracker as T
-from lte_gnu_radio_code_tpu.utils.params import GOLDEN64
+from lte_gnu_radio_code.models import tracker as M
+from lte_gnu_radio_code.reference_cpu import golden as G
+from lte_gnu_radio_code.reference_cpu import tracker as T
+from lte_gnu_radio_code.utils.params import GOLDEN64
 
 
 def _buffer(cfg, seed=0, snr_db=80.0):
@@ -50,13 +50,13 @@ def test_oracle_unfixed_rotation_matches_reference_residual():
     ph = T.data_demod(cfg, rx, tr, fix_rotation=False)
     pts = G.qpsk_map(bits[:cfg.num_data_bins * 2])
     ratio = ph[0] / pts
-    from lte_gnu_radio_code_tpu.utils.params import used_bins
+    from lte_gnu_radio_code.utils.params import used_bins
     signed = np.asarray(used_bins(cfg.nfft, cfg.num_data_bins)[0])
     slope = np.polyfit(signed, np.angle(ratio), 1)[0]
     np.testing.assert_allclose(slope, -2 * np.pi / cfg.nfft, rtol=1e-3)
 
 
-def test_tpu_tracker_matches_oracle():
+def test_jax_tracker_matches_oracle():
     cfg = GOLDEN64
     bits, rx = _buffer(cfg)
     tr = T.track_synch(cfg, rx)
@@ -79,7 +79,7 @@ def test_tpu_tracker_matches_oracle():
     assert np.mean(hard_j[:nb] != hard_o[:nb]) == 0.0
 
 
-def test_tpu_tracker_survives_timing_drift():
+def test_jax_tracker_survives_timing_drift():
     """Insert a small gap mid-stream: tracker re-adjusts and keeps decoding
     the symbols before the gap; detections stay on cadence before it."""
     cfg = GOLDEN64
